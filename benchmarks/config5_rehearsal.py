@@ -1,5 +1,5 @@
 """Config-5 rehearsal: ≥100 WBFM stereo stations on a virtual multi-chip
-world (BASELINE.md north star: ≥100 real-time channels on a v5e-16).
+world (BASELINE.md north star: ≥100 real-time channels).
 
 Real multi-chip hardware is not available in this environment, so this
 rehearses the config-5 SHAPE end-to-end on CPU:
@@ -14,13 +14,15 @@ rehearses the config-5 SHAPE end-to-end on CPU:
    parity between processes.
 
 Per-chip samples/s on virtual CPU devices is a REHEARSAL number (it
-validates the program + collectives, not TPU speed); the hardware
-throughput story lives in bench.py / benchmarks/wideband.py.
+validates the program + collectives, not device speed); the hardware
+throughput story lives in bench.py / benchmarks/wideband.py. On GPUs,
+each process of a multi-process world must see only its own card
+(``CUDA_VISIBLE_DEVICES``).
 
 Prints one JSON line per phase; ``--out`` additionally writes the
 combined artifact. Reference analog: the reference serves 3 stations
 from one sequential loop (``examples/multi_fm_server.py:100-106``) —
-this is the scaled TPU-native replacement.
+this is the scaled, sharded replacement.
 """
 
 from __future__ import annotations
@@ -106,8 +108,8 @@ def single_process_rehearsal(n_stations: int, station_chunk: int,
     snr_ok = all(s[0] > 6 and s[1] > 6 for s in snrs.values())
     parity_ok = parity_ok and snr_ok
 
-    # Timed steps (chained on an audio-derived scalar; CPU has no relay
-    # dedup but the chain keeps the steps strictly serial anyway).
+    # Timed steps (chained on an audio-derived scalar, which keeps the
+    # steps strictly serial).
     jitter = jax.jit(lambda b, c: b * (1.0 + c * 1e-3))
     chk_fn = jax.jit(lambda a: jnp.mean(jnp.abs(a)))
     chk = chk_fn(audio)
@@ -131,11 +133,11 @@ def single_process_rehearsal(n_stations: int, station_chunk: int,
         "sec_per_chunk": round(dt, 3),
         # CPU-VIRTUAL wall clock: 8 virtual devices share this host's few
         # cores, so these two fields measure host contention, NOT chip
-        # throughput (see bench.py / WIDEBAND for real-chip numbers; the
+        # throughput (see bench.py / wideband.py for card numbers; the
         # correctness columns above are this phase's product).
-        "cpu_virtual_iq_msps_per_chip_NOT_TPU": round(
+        "cpu_virtual_iq_msps_per_device_NOT_A_DEVICE_RATE": round(
             n_band / dt / n_dev / 1e6, 3),
-        "cpu_virtual_realtime_channels_NOT_TPU": round(n_stations / dt, 2),
+        "cpu_virtual_realtime_channels_NOT_A_DEVICE_RATE": round(n_stations / dt, 2),
         "compile_plus_first_step_s": round(compile_s, 1),
     }
     print(json.dumps(row), flush=True)
@@ -199,9 +201,9 @@ def multihost_rehearsal(n_stations: int, station_chunk: int,
         "checksum_parity_ok": agree,
         "checksums": [v[0] for v in vals],
         # CPU-VIRTUAL wall clock (see single-process phase note).
-        "cpu_virtual_iq_msps_per_chip_NOT_TPU": round(
+        "cpu_virtual_iq_msps_per_device_NOT_A_DEVICE_RATE": round(
             vals[0][1] / chips / 1e6, 3),
-        "cpu_virtual_realtime_channels_NOT_TPU": round(
+        "cpu_virtual_realtime_channels_NOT_A_DEVICE_RATE": round(
             vals[0][1] / station_chunk, 2),
         "collective_bytes_per_process": [v[3] for v in vals],
         "wall_s": round(wall, 1),

@@ -1,13 +1,12 @@
-"""Per-transform profile of the fast-WBFM demod stage (VERDICT r4 #3).
+"""Per-transform profile of the fast-WBFM demod stage on the GPU.
 
-The demod stage is the fused pipeline's largest (12.6–14.1 ms of the
-~20 ms step at 64 stations, BENCH_*_r04.json) and r4 only A/B'd losing
-mega-kernel fusions against it. This harness answers the unasked
-question: where inside fast-WBFM does the time go, and is each
-transform at its floor?
+The demod is the fused pipeline's largest stage (bench.py's stage
+profile). This harness times each of its transforms alone, against the
+bytes it must move at the card's published HBM bandwidth
+(``runtime.platform.PEAKS``):
 
 Fast-mode per step at (C=64, m=262144 → audio 49152), all batched over
-stations (models/wbfm.py:213-252):
+stations (models/wbfm.py):
   quad      elementwise quadrature demod            (C, m) c64 → f32
   rfft_big  THE one full-length transform           (C, m) f32 → (C, m2c)
   env_ifft  envelope ifft                           (C, 2, n2) c64, n2=65536
@@ -17,15 +16,9 @@ stations (models/wbfm.py:213-252):
   tail      everything after rfft_big (fast_spec)
   demod     the whole vmapped step (what bench.py's stage profile times)
 
-Variants: the pow2 transforms are timed native AND through the Pallas
-whole-row kernel (kernels/fft_pallas.py) — standalone, OUTSIDE vmap
-(the r4 all-pallas bench routed them inside the vmapped step and saw a
-~10× pathology, BENCH_allpallas2_r04.json; this separates "kernel is
-slow" from "kernel-under-vmap lowers badly").
-
-Protocol: per-case per-call jits, fresh inputs, chained scalar derived
-from the expensive output, min-of-epochs (CLAUDE.md relay discipline).
-Prints one JSON line per case + a summary line.
+Protocol: per-case jits, fresh inputs, a chained scalar derived from the
+expensive output, min of epochs. Prints one JSON line per case and a
+summary line. Refuses to run on anything but a GPU.
 
     python benchmarks/demod_profile.py [--stations 64] [--cases a,b]
 """
@@ -64,7 +57,7 @@ def main(argv=None) -> int:
     from radiocore_tpu.ops.demod import quadrature_demod
     from radiocore_tpu.ops.deemphasis import deemphasis_init
     from radiocore_tpu.ops.fir import fir_stream
-    from radiocore_tpu.runtime.transfer import to_host
+    from radiocore_tpu.runtime.platform import device_peaks
 
     C, m, au = args.stations, args.station_chunk, args.audio_chunk
     m2c = m // 2 + 1      # rfft_big bins
@@ -74,11 +67,14 @@ def main(argv=None) -> int:
     v = jax.jit(lambda v: v + 1)(jnp.ones(8))
     jax.block_until_ready(v)
     dev = jax.devices()[0]
-    print(json.dumps({"backend": str(dev), "C": C, "m": m}), flush=True)
-    peak = 819e9 if "v5 lite" in dev.device_kind else None
+    if dev.platform != "gpu":
+        sys.exit(f"demod_profile: needs a GPU, JAX found {dev.platform!r}")
+    print(json.dumps({"platform": dev.platform, "kind": dev.device_kind,
+                      "C": C, "m": m}), flush=True)
+    peak = device_peaks(dev)["hbm_bytes_per_s"]
 
     def fetch(c):
-        return float(to_host(c))
+        return float(c)
 
     iters, epochs = args.iters, args.epochs
 
@@ -102,7 +98,7 @@ def main(argv=None) -> int:
             best = min(best, (time.perf_counter() - t0) / iters)
         rec = {"case": name, "ms": round(best * 1e3, 3),
                "compile_s": round(compile_s, 1)}
-        if floor_bytes and peak:
+        if floor_bytes:
             rec["floor_ms"] = round(floor_bytes / peak * 1e3, 3)
             rec["x_floor"] = round(best * peak / floor_bytes, 1)
         print(json.dumps(rec), flush=True)
@@ -147,7 +143,6 @@ def main(argv=None) -> int:
     # ---- tail from the composite spectrum ------------------------------
     tail_fn = make_wbfm_step(m, au, mode="fast_spec")
     tail = jax.vmap(tail_fn)
-    nb = int(getattr(tail_fn, "needed_bins", m2c))
 
     @case("tail_from_spec")
     def _():
@@ -155,7 +150,7 @@ def main(argv=None) -> int:
             a, _st = tail(qs * (1.0 + c * 1e-3), st0)
             return a, jnp.mean(jnp.abs(a)) + a[0, 0, 0] * 1e-3
         return timed("tail_from_spec", fn, mk_c64((C, m2c)),
-                     floor_bytes=C * nb * 8 + C * au * 2 * 4)
+                     floor_bytes=C * m2c * 8 + C * au * 2 * 4)
 
     # ---- sub-transforms ------------------------------------------------
     @case("quad")
@@ -173,16 +168,6 @@ def main(argv=None) -> int:
         return timed("rfft_big_native", fn, mk_f32((C, m)),
                      floor_bytes=C * m * 4 + C * m2c * 8)
 
-    @case("rfft_big_pallas")
-    def _():
-        from radiocore_tpu.kernels.fft_pallas import rfft_pow2_pallas
-
-        def fn(x, c):
-            s = rfft_pow2_pallas(x * (1.0 + c * 1e-3))
-            return s, jnp.mean(jnp.abs(s[:, ::1024])) + jnp.real(s[0, 0]) * 1e-3
-        return timed("rfft_big_pallas", fn, mk_f32((C, m)),
-                     floor_bytes=C * m * 4 + C * m2c * 8)
-
     @case("env_ifft_native")
     def _():
         def fn(z, c):
@@ -191,33 +176,12 @@ def main(argv=None) -> int:
         return timed("env_ifft_native", fn, mk_c64((C, 2, n2)),
                      floor_bytes=C * 2 * n2 * 16)
 
-    @case("env_ifft_pallas")
-    def _():
-        from radiocore_tpu.kernels.fft_pallas import fft_pow2_pallas
-
-        def fn(z, c):
-            zz = (z * (1.0 + c * 1e-3)).reshape(C * 2, n2)
-            e = fft_pow2_pallas(zz / n2, sign=+1.0).reshape(C, 2, n2)
-            return e, jnp.mean(jnp.abs(e[:, :, ::512])) + jnp.real(e[0, 0, 0]) * 1e-3
-        return timed("env_ifft_pallas", fn, mk_c64((C, 2, n2)),
-                     floor_bytes=C * 2 * n2 * 16)
-
     @case("rfft_n2_native")
     def _():
         def fn(x, c):
             s = jnp.fft.rfft(x * (1.0 + c * 1e-3), axis=-1)
             return s, jnp.mean(jnp.abs(s[:, ::512])) + jnp.real(s[0, 0]) * 1e-3
         return timed("rfft_n2_native", fn, mk_f32((C, n2)),
-                     floor_bytes=C * n2 * (4 + 4))
-
-    @case("rfft_n2_pallas")
-    def _():
-        from radiocore_tpu.kernels.fft_pallas import rfft_pow2_pallas
-
-        def fn(x, c):
-            s = rfft_pow2_pallas(x * (1.0 + c * 1e-3))
-            return s, jnp.mean(jnp.abs(s[:, ::512])) + jnp.real(s[0, 0]) * 1e-3
-        return timed("rfft_n2_pallas", fn, mk_f32((C, n2)),
                      floor_bytes=C * n2 * (4 + 4))
 
     @case("irfft_audio_native")
@@ -243,14 +207,7 @@ def main(argv=None) -> int:
         keep = set(args.cases.split(","))
         names = [n for n in names if n in keep]
 
-    results = {}
-    for name in names:
-        try:
-            results[name] = round(cases[name]() * 1e3, 3)
-        except Exception as e:
-            print(json.dumps({"case": name, "ok": False,
-                              "err": f"{type(e).__name__}: {e}"[:300]}),
-                  flush=True)
+    results = {name: cases[name]() * 1e3 for name in names}
     print(json.dumps({"summary_ms": results, "stations": C, "m": m}),
           flush=True)
     return 0

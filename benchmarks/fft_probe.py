@@ -1,14 +1,13 @@
-"""Probe: native XLA FFT vs four-step decomposition at wideband sizes.
+"""Probe: native FFT (cuFFT) vs the four-step decomposition per size.
 
-XLA's native large single-FFT lowering on TPU is several times off the
-HBM roofline at 2^22+ and scales superlinearly (the measured cause of
-the 128-station single-chip regression, STATUS.md r1). The four-step
-form is two batched small FFTs + twiddle + transposes — all
-bandwidth-shaped ops XLA tiles well. This probe times both per size with
-the honest relay protocol (fresh inputs, output-derived chaining,
-float() barriers) and prints one JSON line per (size, impl).
+Times ``ops.fft.fft`` under each planner policy ('native' and
+'fourstep', ``ops.fft.set_policy``) with fresh inputs and an
+output-derived chained scalar, and prints one JSON line per
+(size, policy) with the effective bandwidth of one read + one write of
+the c64 array. A time below that pass at the card's published HBM
+bandwidth (``runtime.platform.PEAKS``) is marked suspect.
 
-    python benchmarks/fft_probe.py --sizes 22 23 24 25
+    python benchmarks/fft_probe.py --sizes 24 25 26 --raw-sizes 25165824
 """
 
 from __future__ import annotations
@@ -28,7 +27,7 @@ def main(argv=None) -> int:
                         help="absolute FFT sizes (for non-pow2 probes, "
                              "e.g. the 96-station 24M band)")
     parser.add_argument("--impls", default="native,fourstep",
-                        help="comma list of native,fourstep,mixed")
+                        help="comma list of native,fourstep")
     parser.add_argument("--iters", type=int, default=6)
     args = parser.parse_args(argv)
 
@@ -38,9 +37,14 @@ def main(argv=None) -> int:
     import jax.numpy as jnp
     from radiocore_tpu.ops import fft as _fft
 
+    from radiocore_tpu.runtime.platform import device_peaks
+
     dev = jax.devices()[0]
-    print(json.dumps({"backend": str(dev)}), flush=True)
-    peak = 819e9 if "v5" in getattr(dev, "device_kind", "") else None
+    if dev.platform != "gpu":
+        sys.exit(f"fft_probe: needs a GPU, JAX found {dev.platform!r}")
+    print(json.dumps({"platform": dev.platform, "kind": dev.device_kind}),
+          flush=True)
+    peak = device_peaks(dev)["hbm_bytes_per_s"]
 
     sizes = [1 << lg for lg in args.sizes] + list(args.raw_sizes)
     impls = args.impls.split(",")
@@ -55,26 +59,13 @@ def main(argv=None) -> int:
         jax.block_until_ready(xs)
 
         for policy in impls:
-            if policy != "mixed":
-                _fft.set_policy(policy)
+            _fft.set_policy(policy)
             try:
-                if policy == "mixed":
-                    # Pallas mixed-radix large FFT: a·2^k column DFT on
-                    # the MXU + pow2 VMEM kernel rows.
-                    from radiocore_tpu.kernels.fft_pallas import (
-                        fft_large_mixed_pallas)
-
-                    @jax.jit
-                    def f(x, c):
-                        y = fft_large_mixed_pallas(x * (1.0 + c * 1e-3))
-                        return jnp.mean(jnp.abs(y[::65536])) + \
-                            jnp.real(y[0]) * 1e-6
-                else:
-                    @jax.jit
-                    def f(x, c):
-                        y = _fft.fft(x * (1.0 + c * 1e-3))
-                        return jnp.mean(jnp.abs(y[::65536])) + \
-                            jnp.real(y[0]) * 1e-6
+                @jax.jit
+                def f(x, c):
+                    y = _fft.fft(x * (1.0 + c * 1e-3))
+                    return jnp.mean(jnp.abs(y[::65536])) + \
+                        jnp.real(y[0]) * 1e-6
 
                 c = f(xs[-1], jnp.float32(0))
                 float(c)  # compile + drain
@@ -90,15 +81,11 @@ def main(argv=None) -> int:
                 row = {"n": n, "impl": policy,
                        "ms": round(best * 1e3, 3),
                        "eff_gb_per_s": round(2 * n * 8 / best / 1e9, 1)}
-                if peak:
-                    # floor: one read+write pass of the c64 array
-                    row["suspect"] = best < 2 * n * 8 / peak
+                # floor: one read+write pass of the c64 array
+                row["suspect"] = best < 2 * n * 8 / peak
                 print(json.dumps(row), flush=True)
-            except Exception as e:
-                print(json.dumps({"n": n, "impl": policy,
-                                  "error": repr(e)[:200]}), flush=True)
             finally:
-                _fft.set_policy("auto")
+                _fft.set_policy("native")
     return 0
 
 

@@ -1,4 +1,4 @@
-"""Sustained host→device IQ ingest benchmark (VERDICT r1 item 7).
+"""Sustained host→device IQ ingest benchmark.
 
 Measures CF32 ingest at the config-4 class rate (61.44 MS/s target =
 492 MB/s H2D) through :mod:`radiocore_tpu.runtime.ingest`, A/B:
@@ -7,7 +7,7 @@ Measures CF32 ingest at the config-4 class rate (61.44 MS/s target =
 * depth=2 — double-buffered: chunk N+1's H2D DMA issued before chunk N
   is consumed (overlaps transfer with compute).
 
-Each chunk is DISTINCT host data (relay dedup impossible) and the
+Each chunk is DISTINCT host data and the
 consumer compute (FFT + checksum) chains an output-derived scalar into a
 final ``float()`` barrier, so no transfer or compute can be elided.
 

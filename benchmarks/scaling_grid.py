@@ -1,8 +1,7 @@
 """Collective-traffic grid: bytes/device vs station count AND shard
-count, with projected multi-chip efficiency (VERDICT r4 #8).
+count, with projected multi-card efficiency.
 
-The single-chip environment cannot measure exposed collective time, but
-the BYTES each device moves per step is a static property of the
+The BYTES each device moves per step is a static property of the
 compiled sharded HLO (parallel/comm_analysis.py). This harness compiles
 the distributed front-end (six-step band FFT + local extraction in one
 shard_map — the only cross-device stage; the demod is embarrassingly
@@ -10,22 +9,21 @@ station-parallel) over a grid of (stations, devices) at the REAL
 station chunk (262144 S/s) and records:
 
   * collective bytes per device per step (by collective kind),
-  * projected efficiency = t_compute / (t_compute + bytes/ICI_BW).
+  * projected efficiency = t_compute / (t_compute + bytes/LINK_BW).
 
-Model assumptions, stated explicitly (the r4 verdict asked):
-  1. t_compute is the measured single-chip fused-step time divided
-     across D chips perfectly (station parallelism is lockstep-free in
-     steady state; the only serialization is the front-end).
-  2. Collective time = bytes / (45 GB/s per ICI link) with NO overlap
-     of compute and communication — a worst-case bound; XLA routinely
-     overlaps all-to-all with compute.
+Model assumptions:
+  1. t_compute is the measured one-card fused-step time divided across
+     D cards perfectly (station parallelism is lockstep-free in steady
+     state; the only serialization is the front-end).
+  2. Collective time = bytes / NVLink's 450 GB/s each way per card
+     (parallel/comm_analysis.py) with NO overlap of compute and
+     communication — a worst-case bound.
   3. Bytes are per-step HLO totals; the pipeline has no collectives
      inside loops (checked by construction).
-  4. DCN (multi-host) hops are NOT modeled: on a v5e-16 all 16 chips
-     share an ICI domain, which is exactly BASELINE's config-5 target.
+  4. Hops between hosts are NOT modeled.
 
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \
-        python benchmarks/scaling_grid.py --out SCALING_r05.json
+        python benchmarks/scaling_grid.py --out scaling.json
 
 Prints one JSON line per grid point + the combined artifact.
 """
@@ -44,10 +42,10 @@ def main(argv=None) -> int:
                         default=[32, 64, 128])
     parser.add_argument("--devices", type=int, nargs="+", default=[2, 4, 8])
     parser.add_argument("--station-chunk", type=int, default=262_144)
-    parser.add_argument("--step-ms", type=float, default=None,
-                        help="single-chip fused-step ms for the "
-                             "efficiency projection (default: read "
-                             "BENCH_head_r05.json, else BENCH_r04.json)")
+    parser.add_argument("--step-ms", type=float, default=2.33,
+                        help="one-card 64-station fused-step ms for the "
+                             "efficiency projection (default: bench.py "
+                             "on one NVIDIA H100 80GB HBM3 at 700 W)")
     parser.add_argument("--out", default=None)
     args = parser.parse_args(argv)
 
@@ -61,27 +59,11 @@ def main(argv=None) -> int:
     import jax.numpy as jnp
     from jax.sharding import Mesh, PartitionSpec as P
     from radiocore_tpu.parallel.channelize_sharded import make_extract_body
-    from radiocore_tpu.parallel.comm_analysis import collective_bytes
+    from radiocore_tpu.parallel.comm_analysis import (collective_bytes,
+                                                      projected_efficiency)
 
     step_ms = args.step_ms
-    if step_ms is None:
-        for name in ("BENCH_head_r05.json", "BENCH_r04.json"):
-            try:
-                with open(os.path.join(os.path.dirname(__file__), "..",
-                                       name)) as f:
-                    step_ms = json.load(f)["sec_per_step"] * 1e3
-                    step_src = name
-                    break
-            except Exception:
-                continue
-        else:
-            step_ms, step_src = 20.9, "fallback"
-    else:
-        step_src = "cli"
     base_stations = 64   # the step_ms measurement's station count
-
-    ici_gb = 45.0        # ONE ICI link — the no-overlap worst case
-    ici_all_gb = 186.0   # all 4 links (all-to-all stripes across them)
     m = args.station_chunk
     rows = []
     for c in args.stations:
@@ -105,45 +87,30 @@ def main(argv=None) -> int:
                            ).compile().as_text()
             rep = collective_bytes(txt)
             total = rep.get("total", 0)
-            # Scale the measured per-chip compute time to this station
-            # count, then split across D chips (assumption 1).
+            # Scale the measured one-card compute time to this station
+            # count, then split across D cards (assumption 1).
             t_comp = step_ms * 1e-3 * (c / base_stations) / d
-            t_coll = total / (ici_gb * 1e9)
-            t_coll_all = total / (ici_all_gb * 1e9)
-            eff = t_comp / (t_comp + t_coll) if t_comp else None
-            eff_hi = t_comp / (t_comp + t_coll_all) if t_comp else None
             row = {"stations": c, "devices": d,
                    "collective_bytes_per_device": total,
                    "collective_breakdown": {k: v for k, v in rep.items()
                                             if k != "total"},
-                   "t_compute_ms": round(t_comp * 1e3, 3),
-                   "t_collective_ms_bound": round(t_coll * 1e3, 3),
-                   "projected_efficiency_1link_noverlap":
-                       (round(eff, 4) if eff else None),
-                   "projected_efficiency_4link":
-                       (round(eff_hi, 4) if eff_hi else None)}
+                   "t_compute_ms": t_comp * 1e3,
+                   "projected_efficiency_nvlink_noverlap":
+                       projected_efficiency(t_comp, total)}
             rows.append(row)
             print(json.dumps(row), flush=True)
 
-    art = {"round": 5,
-           "what": "collective bytes/device vs (stations, devices) grid, "
+    art = {"what": "collective bytes/device vs (stations, devices) grid, "
                    "distributed six-step band FFT + extraction",
            "station_chunk": m,
-           "step_ms_source": {"file": step_src, "ms": round(step_ms, 2),
-                              "stations": base_stations},
-           "ici_gb_per_link": ici_gb,
-           "ici_gb_all_links": ici_all_gb,
+           "step_ms": step_ms, "step_stations": base_stations,
            "assumptions": [
                "t_compute scales linearly in stations and splits "
-               "perfectly across devices (station axis is "
-               "embarrassingly parallel after the front-end)",
-               "1link column: bytes / 45 GB/s, ZERO compute-"
-               "communication overlap (worst case); 4link column: "
-               "bytes / 186 GB/s (all-to-all stripes across the 4 ICI "
-               "links) — the two columns bracket reality, and XLA's "
-               "collective-compute overlap pushes toward the upper",
+               "perfectly across devices",
+               "collective time = bytes / 450 GB/s (NVLink each way), "
+               "ZERO compute-communication overlap (worst case)",
                "per-step HLO byte totals; no collectives inside loops",
-               "single ICI domain (v5e-16); DCN not modeled",
+               "hops between hosts not modeled",
            ],
            "rows": rows}
     print(json.dumps({"grid_points": len(rows)}), flush=True)

@@ -1,8 +1,6 @@
-"""Sustained streaming run of the single-station receiver on TPU.
+"""Sustained streaming run of the single-station receiver.
 
-VERDICT r4 #2/#7: the repo demonstrated the live-audio path only via
-unit SNR asserts and one-step timings — the reference's canonical demo
-is CONTINUOUS playback (``/root/reference/examples/receive_fm.py:122-
+The reference's canonical demo is CONTINUOUS playback (``/root/reference/examples/receive_fm.py:122-
 132``, the 1-second PortAudio deadline). This harness drives
 ``apps/receive_fm.run`` — the real 3-thread app (producer → RingBuffer
 → ingest-pipelined DSP → sink), not a stripped loop — for ``--seconds``
@@ -15,14 +13,14 @@ of synthetic stereo multiplex and records, per chunk:
 PASS = realtime factor > 1 for every steady-state chunk and zero ring
 overflows.
 
-Host-synth cost is excluded from the claim: on this 2-core host the
-numpy multiplex synthesis itself can exceed 1 s/chunk, so the source
+Host-synth cost is excluded from the claim: the numpy multiplex
+synthesis can exceed 1 s/chunk on a small host, so the source
 pre-renders ``--unique-chunks`` distinct chunks before the clock starts
-and cycles them with a per-chunk amplitude jitter (relay-dedup-proof,
-CLAUDE.md) — the producer thread is then a cheap scale+copy, and chunk
-walls measure the DSP path (H2D ingest + decimate + WBFM + D2H audio).
+and cycles them with a per-chunk amplitude jitter — the producer thread
+is then a cheap scale+copy, and chunk walls measure the DSP path (H2D
+ingest + decimate + WBFM + D2H audio).
 
-    python benchmarks/stream_run.py --seconds 60 --out STREAM_r05.json
+    python benchmarks/stream_run.py --seconds 60 --out stream.json
 """
 
 from __future__ import annotations
@@ -53,8 +51,8 @@ class PrerenderedSource:
     def read_chunk(self, seconds: float = 1.0) -> np.ndarray:
         c = self._chunks[self._i % len(self._chunks)]
         self._i += 1
-        # Fresh values every chunk (the relay dedupes identical
-        # (program, args)); amplitude jitter is demod-invariant for FM.
+        # Fresh values every chunk; amplitude jitter is demod-invariant
+        # for FM.
         return c * np.float32(1.0 + 1e-4 * self._i)
 
 
@@ -77,10 +75,9 @@ class TimingSink:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--seconds", type=float, default=60.0)
-    # TPU-native rate plan by default (pow2 chunks, fast-mode WBFM) —
-    # the reference-parity 2.4M/240k exact-mode config runs seconds per
-    # chunk on TPU (committed failure record STREAM_exactcfg_r05.json)
-    # and remains available via these flags + --wbfm-mode exact.
+    # Pow2 rate plan by default (fast-mode WBFM); the reference-parity
+    # 2.4M/240k exact-mode config is available via these flags +
+    # --wbfm-mode exact.
     parser.add_argument("--input-rate", type=float, default=2_097_152)
     parser.add_argument("--demod-rate", type=float, default=262_144)
     parser.add_argument("--audio-rate", type=float, default=49_152)
@@ -90,9 +87,7 @@ def main(argv=None) -> int:
                              "policy rather than streaming health)")
     parser.add_argument("--unique-chunks", type=int, default=6)
     parser.add_argument("--ring-seconds", type=float, default=8.0,
-                        help="jitter-buffer depth (transient relay "
-                             "transfer stalls of 2-3 s must absorb "
-                             "without overflow-reset)")
+                        help="jitter-buffer depth in seconds")
     parser.add_argument("--out", default=None)
     args = parser.parse_args(argv)
 

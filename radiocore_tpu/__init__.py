@@ -1,9 +1,9 @@
-"""radiocore_tpu — a TPU-native software-defined-radio DSP framework.
+"""radiocore_tpu — a software-defined-radio DSP framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capability surface of
-``luigifcruz/radio-core`` (see /root/reference): broadcast-FM receive
-pipelines — channelizer, FIR filters, FFT resampling, pilot PLL, and
-FM/MFM/WBFM stereo demodulation — built TPU-first:
+A from-scratch JAX/XLA re-design of the capability surface of
+``luigifcruz/radio-core``: broadcast-FM receive pipelines — channelizer,
+FIR filters, FFT resampling, pilot PLL, and FM/MFM/WBFM stereo
+demodulation — that runs on an NVIDIA GPU through XLA and cuFFT:
 
 * all compute-path math is pure, jitted ``jax.numpy`` with static shapes,
 * multi-station work is **batched** (vmap / shard_map over a station axis)
@@ -11,15 +11,14 @@ FM/MFM/WBFM stereo demodulation — built TPU-first:
   (reference: ``examples/multi_fm_server.py:100-106``),
 * streaming state (de-emphasis tails, FIR halos) is threaded explicitly
   through pure step functions instead of hidden attribute mutation,
-* hot kernels have Pallas implementations (``radiocore_tpu.kernels``),
-* scaling is via ``jax.sharding.Mesh`` + ``shard_map`` with ICI collectives
-  (``radiocore_tpu.parallel``), not host threads.
+* scaling is via ``jax.sharding.Mesh`` + ``shard_map`` with XLA
+  collectives (``radiocore_tpu.parallel``), not host threads.
 
 Public surface mirrors the reference package flat re-export style
 (reference: ``radiocore/__init__.py:3-4``).
 """
 
-from radiocore_tpu.runtime.platform import (has_tpu, HasTpu, HasCuda,
+from radiocore_tpu.runtime.platform import (device_platform, HasCuda,
                                             platform_summary)
 from radiocore_tpu.models.fm import FM
 from radiocore_tpu.models.mfm import MFM
@@ -39,5 +38,5 @@ __version__ = "1.0.0"
 __all__ = [
     "FM", "MFM", "WBFM", "Bandpass", "Decimate", "Deemphasis", "PLL",
     "Buffer", "RingBuffer", "Carrousel", "Chopper", "Tuner", "Channel",
-    "has_tpu", "HasTpu", "HasCuda", "platform_summary", "__version__",
+    "device_platform", "HasCuda", "platform_summary", "__version__",
 ]

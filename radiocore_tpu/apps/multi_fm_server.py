@@ -5,7 +5,7 @@ publishes each station's audio on ZeroMQ PUB with the 4-byte
 little-endian center-frequency topic
 (reference: multi_fm_server.py:105-120, tuner.py:33-35).
 
-TPU-first inversion: the reference loops channels sequentially
+Batched inversion: the reference loops channels sequentially
 (reference: multi_fm_server.py:100-106); here the Tuner extracts ALL
 channels in one batched gather+IFFT (``Tuner.run_all``) and per-channel
 demod runs on the already-resident station IQ.

@@ -68,16 +68,16 @@ def run(config: Config, source, sink, seconds: float,
             f"length == sample rate")
     in_chunk = config.chunk_size
     # ``ring_seconds`` sizes the jitter buffer (reference default: 3 s,
-    # reference: examples/receive_fm.py:39-40). Bursty transports (the
-    # dev relay's transient H2D stalls) need more headroom to stream
-    # without overflow-resets — the standard latency/robustness trade.
+    # reference: examples/receive_fm.py:39-40). Bursty sources need more
+    # headroom to stream without overflow-resets — the standard
+    # latency/robustness trade.
     ring = RingBuffer(int(in_chunk * ring_seconds), dtype="complex64",
                       print_overflow=False)
 
     decimate = Decimate(in_chunk, config.demod_chunk)
     if _is_stereo(config):
-        # ``wbfm_mode='fast'`` is the TPU-native demod (one full-length
-        # transform per chunk); 'exact' stays the reference-parity
+        # ``wbfm_mode='fast'`` computes the demod with one full-length
+        # transform per chunk; 'exact' stays the reference-parity
         # default (golden-matched to the scipy oracle).
         demod = WBFM(config.demod_chunk, config.audio_chunk,
                      deemphasis=config.deemphasis, mode=wbfm_mode)

@@ -3,7 +3,7 @@
 Each demodulator exists in two forms:
 
 * a **pure functional step** ``(chunk, state) → (audio, state)`` built by
-  ``make_*_step`` — jit/vmap/shard_map-able, the TPU-native compute path;
+  ``make_*_step`` — jit/vmap/shard_map-able, the jitted compute path;
 * a thin **stateful class** with the reference's ``run(sig,
   numpy_output)`` API for drop-in parity
   (reference: ``radiocore/analog/__init__.py:3-9``).

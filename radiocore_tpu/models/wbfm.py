@@ -16,7 +16,7 @@ Pipeline (matching reference ``radiocore/analog/wbfm.py:66-105``):
 5. per-channel streaming de-emphasis (reference: ``wbfm.py:90-91``);
 6. stack, remove global DC, clip ±0.999 (reference: ``wbfm.py:94-100``).
 
-TPU-first design: the whole pipeline is one pure function of
+Design: the whole pipeline is one pure function of
 ``(iq_chunk, state)`` with static shapes — one XLA program, freely
 vmap-able over a station axis. Output shape is ``(output_size, 2)``
 (the reference returns numpy ``dstack`` shape ``(1, output_size, 2)``;
@@ -172,28 +172,6 @@ def make_wbfm_step(input_size: int, output_size: int,
         n2 *= 2
     use_env = (0 < s0 and s1 < n_rfft and 0 < s2 and e2 <= n_rfft
                and n2 <= n)
-    # Envelope-rate transform lowering: 'native' or 'pallas' (the VMEM
-    # whole-row kernel; only meaningful with an explicit station batch —
-    # the pipeline calls this tail UN-vmapped for exactly that reason).
-    import os as _os
-    _env_fft = _os.environ.get("RADIOCORE_TPU_ENV_FFT", "native")
-
-    def _ifft_env(z):
-        from radiocore_tpu.ops import fft as _fft
-        if _env_fft == "pallas" and (n2 & (n2 - 1)) == 0:
-            from radiocore_tpu.kernels import fft_pallas as _fp
-            if _fp.MIN_ROW <= n2 <= _fp.MAX_ROW:
-                return _fp.fft_pow2_pallas(z, sign=+1.0) / n2
-        return _fft.ifft(z)
-
-    def _rfft_env(x):
-        from radiocore_tpu.ops import fft as _fft
-        if _env_fft == "pallas" and (n2 & (n2 - 1)) == 0:
-            from radiocore_tpu.kernels import fft_pallas as _fp
-            if _fp.MIN_ROW <= n2 // 2 <= _fp.MAX_ROW:
-                return _fp.rfft_pow2_pallas(x)
-        return _fft.rfft(x)
-
     if use_env:
         pw_slice = pilot_weights[s0:s1]
         wc_slice = w1[s2:e2].astype(np.float32)   # no h: one-sided P as-is
@@ -214,7 +192,7 @@ def make_wbfm_step(input_size: int, output_size: int,
 
         zp = q_spec[..., s0:s1] * jnp.asarray(pw_slice)
         zc = q_spec[..., s2:e2] * jnp.asarray(wc_slice)
-        env = _ifft_env(jnp.stack([pad(zp), pad(zc)], axis=-2))
+        env = _fft.ifft(jnp.stack([pad(zp), pad(zc)], axis=-2))
         a, v = env[..., 0, :], env[..., 1, :]
         u = a * a
         # Epsilon guard: a dead/squelched channel (zero pilot band) gives
@@ -240,16 +218,12 @@ def make_wbfm_step(input_size: int, output_size: int,
 
     def step_fast_spec(q_spec: jnp.ndarray, state: State
                        ) -> Tuple[jnp.ndarray, State]:
-        """Fast-mode tail from the composite (quad) rfft spectrum.
-
-        Entry point for the fused extract+demod kernel path
-        (kernels/extract_demod_pallas.py): the pipeline computes
-        ``q_spec = rfft(quad)`` itself and the station IQ never exists.
-        """
+        """Fast-mode tail from the composite (quad) rfft spectrum
+        (``mode='fast_spec'``: benchmarks/demod_profile.py times it)."""
         from radiocore_tpu.ops import fft as _fft
         if use_env:
             lmr_t = _lmr_env(q_spec)                   # rate-n2 envelopes
-            lmr_trunc = _rfft_env(lmr_t)[..., :m2]     # scales cancel: see
+            lmr_trunc = _fft.rfft(lmr_t)[..., :m2]     # scales cancel: see
             # LMR_n[k] = (n/n2)·LMR_n2[k] and V_true = V_raw·(n2/n).
             comp_trunc = q_spec[..., :m2] * jnp.asarray(
                 w1[:m2], dtype=jnp.float32)
@@ -283,11 +257,6 @@ def make_wbfm_step(input_size: int, output_size: int,
         if extra:
             new_state.update(extra)
         return audio.astype(jnp.float32), new_state
-
-    # Highest q_spec bin the fast tail ever reads — lets the fused
-    # spectrum kernel skip writing the rest (pure HBM waste).
-    step_fast_spec.needed_bins = int(max(s1, e2, m2) if use_env
-                                     else n_rfft)
 
     if mode == "exact":
         return step_exact

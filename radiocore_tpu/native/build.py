@@ -14,13 +14,14 @@ _SRC = os.path.join(_HERE, "ringbuffer.cpp")
 _IQ_SRC = os.path.join(_HERE, "iqconvert.cpp")
 
 
-def _cache_dir() -> str:
-    return os.environ.get("RADIOCORE_TPU_CACHE",
-                          os.path.expanduser("~/.cache/radiocore_tpu"))
+# Built libraries go to one git-ignored directory of the checkout,
+# compiled from the committed sources at first use.
+_BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)),
+                          ".native_build")
 
 
 def _lib_path() -> str:
-    return os.path.join(_cache_dir(), "libradiocore_ring.so")
+    return os.path.join(_BUILD_DIR, "libradiocore_ring.so")
 
 
 def _compile(src: str, path: str) -> Optional[str]:
@@ -140,7 +141,7 @@ def load_native_ring(capacity_bytes: int) -> NativeRing:
 
 @functools.lru_cache(maxsize=1)
 def _load_iq() -> Optional[ctypes.CDLL]:
-    path = _compile(_IQ_SRC, os.path.join(_cache_dir(),
+    path = _compile(_IQ_SRC, os.path.join(_BUILD_DIR,
                                           "libradiocore_iq.so"))
     if path is None:
         return None

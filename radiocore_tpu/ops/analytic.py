@@ -1,6 +1,6 @@
 """Analytic signal (Hilbert transform) and pilot-tone harmonic synthesis.
 
-TPU-native core of the reference's ``PLL``, which is not a feedback loop
+Device core of the reference's ``PLL``, which is not a feedback loop
 but an analytic-signal phase tracker: raise ``hilbert(pilot)`` to an
 integer power to multiply its instantaneous phase — regenerating the
 38 kHz stereo subcarrier from the 19 kHz pilot at unit amplitude

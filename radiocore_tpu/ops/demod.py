@@ -1,7 +1,7 @@
 """Quadrature (FM) demodulation.
 
 The reference computes ``angle → unwrap → diff → pad((1,0)) → /π``
-(reference: ``radiocore/analog/fm.py:60-65``). The TPU-native form avoids
+(reference: ``radiocore/analog/fm.py:60-65``). The device form avoids
 the sequential ``unwrap`` entirely: the wrapped phase difference of
 consecutive samples is ``angle(x[n] · conj(x[n-1]))``, which equals
 ``diff(unwrap(angle(x)))`` exactly (both land in (-π, π]) and is a pure

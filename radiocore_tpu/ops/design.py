@@ -1,7 +1,7 @@
 """Host-side filter/window design (NumPy/SciPy, runs at construction time).
 
 All outputs are plain ``numpy`` arrays: they become jit-time constants,
-so the accelerator only ever sees static data. This is the TPU analog of
+so the accelerator only ever sees static data. This is the JAX analog of
 the reference's convention that tap design always uses host scipy
 (reference: ``radiocore/_internal/injector.py:22-27``).
 """

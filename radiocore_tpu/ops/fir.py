@@ -1,11 +1,9 @@
 """FIR filtering primitives: causal, zero-phase, and streaming-stateful.
 
-TPU-native replacement for the reference's cuSignal/scipy ``lfilter`` and
+Replacement for the reference's cuSignal/scipy ``lfilter`` and
 ``filtfilt`` calls (reference: ``radiocore/analog/bandpass.py:72``,
-``radiocore/analog/deemphasis.py:64``). Convolutions are expressed as
-``lax.conv_general_dilated`` so XLA can tile the batched case onto the
-MXU; the Pallas overlap-save kernel in
-:mod:`radiocore_tpu.kernels.fir_pallas` is a drop-in for the hot path.
+``radiocore/analog/deemphasis.py:64``). Two lowerings of the same math:
+a direct ``lax.conv_general_dilated`` and an FFT overlap-save form.
 
 All functions support arbitrary leading batch dimensions and operate on
 the last axis.
@@ -18,6 +16,10 @@ from typing import Optional, Tuple
 import numpy as np
 import jax
 import jax.numpy as jnp
+
+
+# Overlap-save block length (samples of output per FFT block).
+_OS_BLOCK = 1 << 15
 
 
 def _as_taps(taps, dtype) -> jnp.ndarray:
@@ -39,10 +41,10 @@ def _corr_valid(x: jnp.ndarray, kernel: jnp.ndarray) -> jnp.ndarray:
     lead = x.shape[:-1]
     xb = x.reshape((-1, 1, x.shape[-1]))
     k = kernel.reshape((1, 1, -1)).astype(x.dtype)
-    # HIGHEST: the TPU MXU's DEFAULT f32 contraction rounds inputs to
-    # bf16 (~3e-3 relative FIR error vs a float64 oracle, measured on
-    # v5e — see kernels/fir_pallas.py). FIR convs here are thin and
-    # bandwidth-bound, so the f32-emulation passes cost little.
+    # HIGHEST: at DEFAULT precision an f32 conv may run in TF32 on the
+    # GPU's tensor cores, which keeps ~3 decimal digits (~1e-3 relative
+    # FIR error against a float64 oracle). The radio's fidelity bounds
+    # need full f32.
     y = jax.lax.conv_general_dilated(
         xb, k, window_strides=(1,), padding="VALID",
         precision=jax.lax.Precision.HIGHEST)
@@ -58,35 +60,20 @@ def fir_causal(x: jnp.ndarray, taps,
     streaming state); defaults to zeros — identical to
     ``scipy.signal.lfilter(b, 1, x)`` with zero initial conditions.
 
-    ``impl``: 'conv' (XLA conv), 'pallas' (MXU banded-matmul kernel,
-    :mod:`radiocore_tpu.kernels.fir_pallas`), 'fft' (overlap-save FFT
-    form, :func:`fir_overlap_save`), or 'auto' — pallas on TPU for long
-    float32 signals, conv otherwise.
+    ``impl``: 'conv' (XLA conv), 'fft' (overlap-save FFT form,
+    :func:`fir_overlap_save`), or 'auto': 'fft' once the signal fills
+    one overlap-save block and the taps are host constants, else 'conv'.
+    On an H100 the overlap-save form took 1.50 ms against the conv's
+    5.39 ms for 129 taps on (2, 2^24) f32, and 0.200 against 0.231 ms
+    for 51 taps on (64, 49 152) (device time, benchmarks/fft_micro.py);
+    below one block it would pad every signal to a whole block.
     """
+    if impl not in ("auto", "conv", "fft"):
+        raise ValueError(f"unknown FIR impl {impl!r}")
     if impl == "auto":
-        import os
-        from radiocore_tpu.runtime.platform import has_tpu
-        # Default: the Pallas MXU kernel on TPU — measured numbers live
-        # in ONE place, PALLAS_SOAK_r*.json (v5e, honest chained
-        # protocol, 64×262144×129): pallas 5040 MS/s vs HIGHEST-
-        # precision conv 292 MS/s. The conv collapsed ~5× when
-        # Precision.HIGHEST landed (a correctness requirement — DEFAULT
-        # rounds f32 inputs to bf16), so if the Pallas kernel ever
-        # mis-lowers, opt out with RADIOCORE_TPU_FIR_IMPL=fft (the
-        # overlap-save FFT form: same math, HIGHEST-immune), NOT =conv,
-        # which is the 17× cliff. Elsewhere (CPU, complex IQ, short
-        # signals, traced taps) XLA conv remains the lowering.
-        impl = os.environ.get("RADIOCORE_TPU_FIR_IMPL", "pallas")
-        if impl == "pallas" and (not has_tpu()
-                                 or jnp.iscomplexobj(x)
-                                 or x.shape[-1] < 16384
-                                 or not isinstance(taps, np.ndarray)):
-            impl = "conv"
-        elif impl == "fft" and x.shape[-1] < 16384:
-            impl = "conv"
-    if impl == "pallas":
-        from radiocore_tpu.kernels.fir_pallas import fir_causal_pallas
-        return fir_causal_pallas(x, taps, history=history)
+        long = x.shape[-1] >= _OS_BLOCK >= np.shape(taps)[0]
+        host_taps = isinstance(taps, (np.ndarray, list, tuple))
+        impl = "fft" if long and host_taps else "conv"
     if impl == "fft":
         return fir_overlap_save(x, taps, history=history)
     taps = _as_taps(taps, x.dtype)
@@ -106,10 +93,7 @@ def fir_stream(x: jnp.ndarray, taps,
     the reference's stateful de-emphasis across 1-second chunks
     (reference: ``radiocore/analog/deemphasis.py:64``).
 
-    Routes through :func:`fir_causal`'s impl=auto so the hot batched
-    f32 case (the per-station de-emphasis inside the fused pipeline)
-    takes the Pallas MXU kernel on TPU — full f32 accuracy at ~17× the
-    HIGHEST-precision conv's runtime (benchmarks/pallas_soak.py).
+    Routes through :func:`fir_causal`'s impl=auto.
     """
     t = int(np.shape(taps)[0])
     y = fir_causal(x, taps, history=history)
@@ -123,7 +107,7 @@ def fir_stream(x: jnp.ndarray, taps,
 
 def fir_overlap_save(x: jnp.ndarray, taps,
                      history: Optional[jnp.ndarray] = None,
-                     block: int = 1 << 15) -> jnp.ndarray:
+                     block: int = _OS_BLOCK) -> jnp.ndarray:
     """Causal FIR via FFT overlap-save (for very long signals/wideband).
 
     Identical output to :func:`fir_causal`; cost is O(N·log(block))
@@ -191,8 +175,8 @@ def zero_phase_fir(x: jnp.ndarray, taps,
     the reference's pilot-tone bandpass
     (reference: ``radiocore/analog/bandpass.py:72``).
     """
-    t = int(np.shape(taps)[0])  # keep taps unconverted: the pallas impl
-    n = x.shape[-1]             # bakes host-numpy taps into band matrices
+    t = int(np.shape(taps)[0])
+    n = x.shape[-1]
     if padlen is None:
         padlen = 3 * t
     if padlen >= n:

@@ -9,7 +9,7 @@ alternative flagged in SURVEY.md §2.4 item 4: true carrier tracking
 with a controlled loop bandwidth, streaming state across chunks.
 
 The recurrence is inherently sequential, expressed as a ``lax.scan``
-(vmap-able over stations). On TPU it trades throughput for tracking
+(vmap-able over stations). It trades throughput for tracking
 quality — the analytic-signal path remains the high-throughput default.
 """
 

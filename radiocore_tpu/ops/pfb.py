@@ -8,8 +8,9 @@ a length ``M·P`` prototype lowpass folded into ``M`` branches, a
 depthwise branch convolution, and an M-point FFT per output frame —
 O(N·(P + log M)) for ALL M channels at once, uniform spacing ``fs/M``.
 
-TPU mapping: the branch convolution is a grouped 1-D conv (M feature
-groups — MXU-friendly), the per-frame FFT is a batched length-M FFT.
+Device mapping: the branch convolution is P shifted multiply-adds over
+the frame matrix (one fused pass), the per-frame FFT is a batched
+length-M FFT.
 Streaming state is the trailing ``(P−1)·M`` input samples.
 
 Convention: channel k is centered at ``k·fs/M`` (wrapping negatives),
@@ -49,13 +50,11 @@ def _branch_conv(z: jnp.ndarray, kernels: jnp.ndarray) -> jnp.ndarray:
     (..., S−P+1, M); out[t, m] = Σ_q z[t+q, m]·kernels[m, q].
 
     Lowering: P statically-unrolled shifted multiply-adds. Each tap is
-    an elementwise VPU op over the frame matrix — XLA fuses the chain
-    into one pass, full f32 accuracy (no MXU contraction, so no bf16
-    input rounding), and the whole conv stays HBM-bound. The grouped
-    ``lax.conv`` form this replaces was the wideband bottleneck on TPU:
-    XLA lowers depthwise convs poorly (r1: 111 Msps at DEFAULT
-    precision; slower still at HIGHEST, which correctness requires —
-    see kernels/fir_pallas.py on MXU bf16 rounding)."""
+    an elementwise op over the frame matrix — XLA fuses the chain into
+    one pass, in full f32 (no matrix-unit contraction, so no reduced-
+    precision input rounding), and the whole conv stays bound by memory
+    bandwidth. A grouped ``lax.conv`` would need HIGHEST precision for
+    the same accuracy."""
     p = kernels.shape[-1]
     t_out = z.shape[-2] - p + 1
     kern = jnp.asarray(kernels)

@@ -1,6 +1,6 @@
 """FFT-domain arbitrary-ratio resampling (the Fourier method).
 
-TPU-native core of the reference's ``Decimate`` and ``Tuner`` back-ends,
+Device core of the reference's ``Decimate`` and ``Tuner`` back-ends,
 which call ``scipy.signal.resample`` / ``cusignal.resample``
 (reference: ``radiocore/analog/decimate.py:47-48``,
 ``radiocore/tools/tuner.py:160-161``). Semantics replicate scipy's

@@ -1,14 +1,14 @@
 """Parallelism layer: device meshes, halo exchange, sharded pipelines.
 
 The reference has no distributed layer at all — its concurrency is three
-Python threads and ZeroMQ (SURVEY.md §2.5). This package is the new,
-TPU-native scaling design:
+Python threads and ZeroMQ (SURVEY.md §2.5). This package is the new
+scaling design:
 
 * **station axis** — independent FM stations shard like a batch/expert
   axis (embarrassingly parallel after the channelizer);
 * **time axis** — the 1-second sample axis shards like sequence/context
   parallelism; FIR filters exchange ``num_taps−1``-sample halos between
-  neighbor chips over ICI (``lax.ppermute``);
+  neighbor devices (``lax.ppermute``);
 * the channelizer's full-band FFT is left to XLA's SPMD partitioner via
   sharding annotations (scaling-book recipe: annotate, let XLA insert
   collectives).

@@ -5,7 +5,7 @@ This is the single home of the distributed front-end (round-2 had two
 four-step copies: ``parallel/fft_sharded.py`` and an inline reimpl in
 ``parallel/pipeline.py`` — unified here). It replaces the reference's
 replicated full-band FFT hot loop (``radiocore/tools/tuner.py:137-138``)
-with the classic six-step distributed FFT (3 ``all_to_all``s over ICI)
+with the classic six-step distributed FFT (3 ``all_to_all``s)
 followed by a 2-``ppermute`` spectrum roll and local windowed
 extraction: no device ever materializes the full band or its spectrum
 (per-device peak is ~1/D of the band).

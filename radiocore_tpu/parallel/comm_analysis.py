@@ -1,18 +1,16 @@
 """Collective-traffic analysis of compiled sharded programs.
 
-Scaling efficiency on a real pod is compute_time / (compute_time +
-exposed collective time). Single-chip environments can't measure the
-second term, but they CAN measure its numerator exactly: the bytes each
-device moves through collectives per step is a static property of the
-compiled HLO. This module extracts it, so the ≥80% multi-host target
-(BASELINE.md) becomes falsifiable at the algorithm level:
+Scaling efficiency across cards is compute_time / (compute_time +
+exposed collective time). The bytes each device moves through
+collectives per step is a static property of the compiled HLO; this
+module extracts it, so the ≥80% multi-device target (BASELINE.md)
+becomes falsifiable at the algorithm level:
 
-    projected_efficiency = t_compute / (t_compute + bytes/ICI_BW)
+    projected_efficiency = t_compute / (t_compute + bytes/LINK_BW)
 
-with ``t_compute`` taken from the real-chip single-device benchmark and
-``ICI_BW`` the known per-chip interconnect bandwidth (v5e: 4 links ×
-~50 GB/s usable each way ≈ 186 GB/s per chip in a 2-D torus; we use a
-conservative 100 GB/s default).
+with ``t_compute`` taken from the single-card benchmark and ``LINK_BW``
+the per-card interconnect bandwidth: NVLink on the H100, 450 GB/s each
+way per card (900 GB/s total; NVIDIA H100 data sheet).
 
 Parsing: XLA HLO text names collectives ``all-to-all``, ``all-gather``,
 ``all-reduce``, ``reduce-scatter``, ``collective-permute``. The RESULT
@@ -25,6 +23,8 @@ from __future__ import annotations
 
 import re
 from typing import Dict
+
+from radiocore_tpu.runtime.platform import PEAKS
 
 _DTYPE_BYTES = {
     "pred": 1, "s8": 1, "u8": 1, "s16": 2, "u16": 2, "bf16": 2, "f16": 2,
@@ -65,9 +65,14 @@ def collective_bytes(hlo_text: str) -> Dict[str, int]:
     return out
 
 
+NVLINK_BYTES_PER_S = PEAKS["NVIDIA H100 80GB HBM3"][
+    "nvlink_bytes_per_s_each_way"]
+
+
 def projected_efficiency(t_compute_s: float, coll_bytes: int,
-                         ici_bytes_per_s: float = 100e9) -> float:
+                         link_bytes_per_s: float = NVLINK_BYTES_PER_S
+                         ) -> float:
     """Scaling efficiency if collectives are fully exposed (worst case:
     no compute/communication overlap)."""
-    t_coll = coll_bytes / ici_bytes_per_s
+    t_coll = coll_bytes / link_bytes_per_s
     return t_compute_s / (t_compute_s + t_coll)

@@ -1,7 +1,7 @@
 """Distributed four-step FFT over a time-sharded band.
 
 The wideband channelizer's front FFT (10–61 MS/s, SURVEY.md §2.5) is the
-one global op in the pipeline. Two TPU-native lowerings are provided:
+one global op in the pipeline. Two lowerings are provided:
 
 1. :func:`fft_sharded_auto` — jit with sharding annotations; XLA's SPMD
    partitioner chooses the collectives (the scaling-book default).
@@ -9,9 +9,7 @@ one global op in the pipeline. Two TPU-native lowerings are provided:
    ``shard_map``: with the band reshaped to (N1, N2) and N1 sharded,
    the length-N2 row FFTs are purely local, the twiddle multiply is
    local, and the length-N1 column FFT needs the axis transposed — one
-   ``all_to_all`` over ICI each way. This is the classic distributed FFT
-   and also sidesteps native-FFT size limits (each local FFT is a small
-   safe size).
+   ``all_to_all`` each way. This is the classic distributed FFT.
 
 Both return the standard DFT (matching ``numpy.fft.fft``) laid out
 ``k = k1 + N1·k2``.

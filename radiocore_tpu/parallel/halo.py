@@ -1,11 +1,10 @@
 """Halo exchange for time-sharded FIR filtering.
 
 The sequence-parallel analog from SURVEY.md §2.5: the 1-second sample
-axis is sharded across chips; a causal FIR needs the last ``num_taps−1``
+axis is sharded across devices; a causal FIR needs the last ``num_taps−1``
 samples of the left neighbor's block, a zero-phase FIR needs halos on
-both sides. Exchanges ride ICI via ``lax.ppermute`` inside ``shard_map``
-(the XLA-collective form of the Pallas ``make_async_remote_copy`` ring
-pattern in SNIPPETS.md [2]).
+both sides. Exchanges are ``lax.ppermute`` inside ``shard_map``, which
+XLA hands to the devices' interconnect (NVLink between GPUs).
 
 These functions are written to run INSIDE ``shard_map`` (they use an
 ``axis_name``); :func:`fir_causal_sharded` / :func:`zero_phase_fir_sharded`

@@ -89,8 +89,7 @@ def make_multi_station_step(
         if mesh is not None:
             # Gather the time-sharded band before the FFT with an explicit
             # canonical-layout constraint (the CPU FFT runtime rejects the
-            # partitioner's implicit-gather layout; on TPU this is where a
-            # sharded four-step FFT slots in — parallel/fft_sharded.py).
+            # partitioner's implicit-gather layout).
             band_iq = jax.lax.with_sharding_constraint(
                 band_iq, NamedSharding(mesh, P()))
         return _fft.fft(band_iq)
@@ -138,122 +137,19 @@ def make_multi_station_step(
 
         return step, state0
 
-    # Single-chip: ONE program when every FFT size lowers natively
-    # (saves the inter-stage HBM round-trips of the spectrum/station
-    # arrays — measured 26.9 → 25.4 ms at 64×262 144 on v5e). With a
-    # planner-DECOMPOSED size in the program, keep per-stage jits: the
-    # decomposition's transposes propagate tiled layouts that degrade
-    # the extraction slices into gather-like loops (~129 ms vs ~19 ms
-    # at 16×250 kS/s). A jit boundary pins canonical layouts.
-    # The fused program contains FFTs at the band, station AND audio
-    # sizes (the demod's irfft at audio_chunk; in exact mode also the
-    # decimation irfft). A planner-decomposed size anywhere in a fused
-    # program re-triggers the tiled-layout slowdown (~129 vs 19 ms
-    # class) — EXCEPT pure power-of-two decompositions, whose pow2
-    # sub-FFT reshapes keep canonical layouts (the hazard came from
-    # odd-factor splits of sizes like 250 000). Pow2 four-step band
-    # FFTs (the planner's preference above RADIOCORE_TPU_FFT_FOURSTEP
-    # _MIN) therefore stay inside the single fused program.
+    # Single device: ONE program when no FFT size in it is decomposed
+    # (saves the inter-stage round-trips of the spectrum and station
+    # arrays through device memory). With the 'fourstep' FFT policy
+    # (ops/fft.py set_policy) a non-pow2 size is decomposed, and the
+    # stages get their own jits: a jit boundary pins canonical layouts,
+    # which the decomposition's transposes would otherwise propagate
+    # into the extraction slices. The default policy is native for every
+    # size, so on the GPU and the CPU the fused program is always taken.
     def _fusable(s: int) -> bool:
         return (s & (s - 1)) == 0 or _fft._plan(s) is None
 
-    # Fused extract+demod kernel path (opt-in while hardware-validating):
-    # band spectrum → quad (C, m) f32 in ONE Pallas pass — the station
-    # IQ never touches HBM — then one batched rfft + the fast-mode
-    # narrowband tail (kernels/extract_demod_pallas.py).
-    import os
-    _xd = os.environ.get("RADIOCORE_TPU_EXTRACT_DEMOD")
-    if _xd in ("fused", "spec") and mode == "fast" and mesh is None:
-        from radiocore_tpu.kernels.extract_demod_pallas import (
-            extract_demod_ok, extract_demod_rows_pallas,
-            extract_demod_spec_ok, extract_demod_spec_rows_pallas)
-        from radiocore_tpu.ops.channelize import uniform_extraction_start
-        shifts = tuple(int(-o) for o in offsets_hz)
-        a0 = uniform_extraction_start(int(n_band), shifts,
-                                      int(station_chunk))
-        sc = int(station_chunk)
-        ok = (a0 is not None and sc % 2 == 0
-              and (extract_demod_spec_ok(int(n_band), sc, n_stations)
-                   if _xd == "spec"
-                   else extract_demod_ok(int(n_band), sc, n_stations)))
-        if ok:
-            tail_fn = make_wbfm_step(station_chunk, audio_chunk,
-                                     deemphasis, mode="fast_spec")
-            tail = jax.vmap(tail_fn)
-            m2 = sc // 2 + 1
-            nb = int(getattr(tail_fn, "needed_bins", m2))
-
-            if _xd == "spec":
-                # Spectrum-output mega-kernel: band spectrum →
-                # composite spectra directly; neither the station IQ
-                # nor the quad time series ever exists in HBM, and only
-                # the bins the tail reads are written.
-                @jax.jit
-                def step(band_iq: jnp.ndarray, state: dict):
-                    qs = extract_demod_spec_rows_pallas(
-                        band_fft(band_iq), a0, n_stations, sc,
-                        keep_bins=nb)
-                    return tail(qs[:, :nb], state)
-            else:
-                @jax.jit
-                def step(band_iq: jnp.ndarray, state: dict):
-                    quad = extract_demod_rows_pallas(
-                        band_fft(band_iq), a0, n_stations, sc)
-                    return tail(_fft.rfft(quad), state)
-
-            return step, state0
-
     if all(_fusable(s) for s in {int(n_band), int(station_chunk),
                                  int(audio_chunk)}):
-        if mode == "fast":
-            # Restructured fast path: the per-station composite rfft —
-            # the demod stage's one full-length transform — is hoisted
-            # OUT of the vmapped step into an explicit (C, m) batched
-            # call. Mathematically identical (vmap of rfft is the same
-            # batched HLO); the point is op-level routing: the Pallas
-            # whole-row kernel must see the station batch directly
-            # (vmapping a pallas_call adds a grid dim with pathological
-            # lowering — the r4 all-pallas 10× slowdown,
-            # BENCH_allpallas2_r04.json). Routing knob:
-            # RADIOCORE_TPU_STATION_RFFT=pallas|native|auto. DEFAULT
-            # since r5: auto = pallas on TPU — hardware A/B
-            # BENCH_prfft_r05.json: 19.24 vs 20.35 ms/step, and the
-            # standalone ladder has the kernel rfft at 6.15 vs 8.34 ms
-            # native (DEMOD_PROFILE_r05.json).
-            from radiocore_tpu.ops.demod import quadrature_demod
-            tail_fn = make_wbfm_step(station_chunk, audio_chunk,
-                                     deemphasis, mode="fast_spec")
-            # No vmap: the fast_spec tail is batch-generic (last-axis
-            # jnp ops), and an explicit (C, ...) batch is what lets any
-            # Pallas routing inside it see the station batch directly
-            # (vmap-of-pallas is the r4 10× pathology).
-            tail = tail_fn
-            sc = int(station_chunk)
-
-            _rfft_impl = os.environ.get("RADIOCORE_TPU_STATION_RFFT",
-                                        "auto")
-
-            def station_rfft(quad: jnp.ndarray) -> jnp.ndarray:
-                impl = _rfft_impl
-                if impl == "auto":
-                    from radiocore_tpu.runtime.platform import has_tpu
-                    impl = "pallas" if has_tpu() else "native"
-                if impl == "pallas":
-                    from radiocore_tpu.kernels.fft_pallas import (
-                        MAX_ROW, MIN_ROW, rfft_pow2_pallas)
-                    h = sc // 2
-                    if (sc & (sc - 1)) == 0 and MIN_ROW <= h <= MAX_ROW:
-                        return rfft_pow2_pallas(quad)
-                return _fft.rfft(quad)
-
-            @jax.jit
-            def step(band_iq: jnp.ndarray, state: dict):
-                st_iq = extract(band_fft(band_iq)).astype(jnp.complex64)
-                q_spec = station_rfft(quadrature_demod(st_iq))
-                return tail(q_spec, state)
-
-            return step, state0
-
         @jax.jit
         def step(band_iq: jnp.ndarray, state: dict):
             return wbfm_stage(extract(band_fft(band_iq)), state)

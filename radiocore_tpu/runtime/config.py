@@ -28,7 +28,7 @@ class MeshConfig:
     Axes follow the scaling plan in SURVEY.md §2.5: ``stations`` is the
     embarrassingly-parallel data axis (one independent FM station per
     shard group), ``time`` shards the 1-second sample axis with FIR halo
-    exchange over ICI.
+    exchange between devices.
     """
 
     stations: int = 1

@@ -1,27 +1,18 @@
-"""Overlapped host→device IQ ingest (double-buffered, donated staging).
+"""Overlapped host→device IQ ingest (double-buffered staging).
 
 The reference overlaps SDR reads with GPU compute through cuSignal's
 pinned/managed shared memory (reference ``radiocore/tools/buffer.py:
 42-44``); the producer thread lands samples in memory the GPU can read
-directly. The JAX-native equivalent of that double buffering is
-
-* **async dispatch**: ``jax.device_put`` and jitted calls enqueue and
-  return immediately, so issuing chunk N+1's H2D copy *before* consuming
-  chunk N's result overlaps the DMA with N's compute;
-* **donation**: the on-device ``interleaved f32 → complex64`` unpack
-  runs in a jit with ``donate_argnums=0`` — XLA reuses the staging
-  buffer's HBM for the output instead of keeping two generations of
-  staging slabs alive (the allocator round-robins the freed slab into
-  the next put: a two-slot ring without hand-managed slots).
+directly. The JAX equivalent of that double buffering is async
+dispatch: ``jax.device_put`` and jitted calls enqueue and return
+immediately, so issuing chunk N+1's H2D copy *before* consuming chunk
+N's result overlaps the DMA with N's compute. The ``interleaved f32 →
+complex64`` unpack runs on the device.
 
 :class:`IngestPipe` wraps any iterator of host complex64 chunks and
 yields device complex64 chunks one transfer ahead.  IQ bytes cross the
 boundary exactly once, as raw float32 pairs (no host-side re-pack: a
 ``complex64`` numpy array IS interleaved float32 — we transfer a view).
-
-Resilience: on relay stacks that reject large transfers the pipe falls
-back to :mod:`radiocore_tpu.runtime.transfer`'s retry/chunked staging
-for that chunk (correctness first, overlap when healthy).
 """
 
 from __future__ import annotations
@@ -34,59 +25,20 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from radiocore_tpu.runtime.transfer import to_device_c64
-
 
 @jax.jit
-def _unpack_sync(planes: jnp.ndarray) -> jnp.ndarray:
+def _unpack(planes: jnp.ndarray) -> jnp.ndarray:
     return jax.lax.complex(planes[..., 0], planes[..., 1])
 
 
-# Donated variant: the (n, 2) f32 staging slab's HBM is reused for the
-# complex64 output (same byte count) — no second allocation, and the
-# slab freed by chunk N's unpack is available for chunk N+1's put.
-_unpack_donated = jax.jit(_unpack_sync, donate_argnums=0)
-
-
-def stage_chunk(arr: np.ndarray, donate: bool = True) -> jnp.ndarray:
+def stage_chunk(arr: np.ndarray) -> jnp.ndarray:
     """Start an async H2D transfer of a host complex64 chunk; returns the
-    (lazy) device complex64 array. Falls back to the resilient path on
-    transfer failure.
-
-    NOTE: ``jax.device_put`` and the unpack jit enqueue asynchronously —
-    a relay failure usually surfaces later, at first consumption, NOT
-    inside this try. :meth:`IngestPipe.stream` therefore verifies each
-    chunk (``block_until_ready``) before yielding and re-stages through
-    the blocking resilient path on failure; call :func:`verify_staged`
-    if you use ``stage_chunk`` directly on a flaky transport."""
+    (lazy) device complex64 array."""
     arr = np.ascontiguousarray(arr)
     if arr.dtype != np.complex64:
         arr = arr.astype(np.complex64)
     planes = arr.view(np.float32).reshape(arr.shape + (2,))
-    try:
-        staged = jax.device_put(planes)  # async: enqueues the DMA
-        unpack = _unpack_donated if donate else _unpack_sync
-        return unpack(staged)
-    except Exception:
-        return to_device_c64(arr)
-
-
-def verify_staged(chunk: jnp.ndarray, host_arr: np.ndarray) -> jnp.ndarray:
-    """Barrier on an async-staged chunk; re-stage on deferred H2D failure.
-
-    Async relay H2D errors surface at consumption time (the DMA is only
-    enqueued by :func:`stage_chunk`); blocking here keeps those errors
-    inside ingest, where the blocking retry/chunked path
-    (:func:`radiocore_tpu.runtime.transfer.to_device_c64`) can recover,
-    instead of crashing the consumer's compute. The barrier costs no
-    overlap in steady state: chunk N is verified only when it is about
-    to be consumed, after chunk N+1's transfer has already been issued.
-    """
-    try:
-        jax.block_until_ready(chunk)
-        return chunk
-    except Exception:
-        return to_device_c64(np.ascontiguousarray(host_arr))
+    return _unpack(jax.device_put(planes))  # async: enqueues the DMA
 
 
 class IngestPipe:
@@ -98,27 +50,23 @@ class IngestPipe:
     the synchronous behavior (for A/B measurement).
     """
 
-    def __init__(self, depth: int = 2, donate: bool = True):
+    def __init__(self, depth: int = 2):
         if depth < 1:
             raise ValueError("depth must be >= 1")
         self.depth = depth
-        self.donate = donate
 
     def stream(self, host_chunks: Iterable[np.ndarray]
                ) -> Iterator[jnp.ndarray]:
-        # Each pending entry keeps its host array alive so a DEFERRED
-        # relay H2D failure (which surfaces at the pre-yield barrier, not
-        # inside stage_chunk) can be recovered by re-staging through the
-        # blocking resilient path. Callers that recycle staging buffers
-        # must keep >= depth+1 of them (receive_fm does) so the host
-        # bytes are intact until their chunk is yielded.
-        pending: list[tuple[jnp.ndarray, np.ndarray]] = []
+        # Callers that recycle staging buffers must keep >= depth+1 of
+        # them (receive_fm does): ``jax.device_put`` may still be reading
+        # a host buffer until its chunk has been consumed.
+        pending: list[jnp.ndarray] = []
         for arr in host_chunks:
-            pending.append((stage_chunk(arr, self.donate), arr))
+            pending.append(stage_chunk(arr))
             if len(pending) >= self.depth:
-                yield verify_staged(*pending.pop(0))
+                yield pending.pop(0)
         while pending:
-            yield verify_staged(*pending.pop(0))
+            yield pending.pop(0)
 
 
 class ThreadedIngest:

@@ -1,68 +1,91 @@
-"""Platform probing and distributed runtime setup.
+"""Platform query, published device peaks, and distributed runtime setup.
 
-TPU analog of the reference's CUDA capability probe
+Counterpart of the reference's CUDA capability probe
 (reference: ``radiocore/__init__.py:6-26`` ``HasCuda``).
 """
 
 from __future__ import annotations
 
-import functools
 from typing import Optional
 
 import jax
 
 
-@functools.lru_cache(maxsize=None)
-def has_tpu() -> bool:
-    """Return True when a TPU device is available.
+def device_platform() -> str:
+    """Platform of JAX's default device: ``'gpu'``, ``'cpu'``, ...
 
-    Mirrors the reference's ``HasCuda()`` probe semantics
-    (reference: ``radiocore/__init__.py:6-26``): a cheap, cached capability
-    check apps can use to pick configurations. Never raises.
+    The one capability query of the package. Every op is plain JAX, so
+    nothing in the compute path branches on it.
     """
-    try:
-        return any("tpu" in d.device_kind.lower() or d.platform == "tpu"
-                   for d in jax.devices())
-    except Exception:  # no backend at all
+    return jax.devices()[0].platform
+
+
+def HasCuda() -> bool:  # noqa: N802 - parity with the reference's name
+    """True exactly when JAX runs on an NVIDIA GPU through CUDA, as the
+    reference's ``HasCuda()`` answers (reference:
+    ``radiocore/__init__.py:6-26``)."""
+    if device_platform() != "gpu":
         return False
+    version = getattr(jax.devices()[0].client, "platform_version", "")
+    return "cuda" in str(version).lower()
 
 
-def HasTpu() -> bool:  # noqa: N802 - parity alias with reference HasCuda()
-    """Alias of :func:`has_tpu` matching the reference's naming style."""
-    return has_tpu()
+# Published peak rates by exact ``device_kind``. Source: NVIDIA H100
+# Tensor Core GPU data sheet, SXM5 80 GB part, dense rates without
+# sparsity, at the 700 W power limit. A card set below that limit cannot
+# hold these rates; report its ``power.limit`` beside any share of them.
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": {
+        "hbm_bytes_per_s": 3.35e12,
+        "f32_flops": 67e12,
+        "tf32_flops": 495e12,
+        "bf16_flops": 989e12,
+        "nvlink_bytes_per_s_each_way": 450e9,
+    },
+}
 
 
-def HasCuda() -> bool:  # noqa: N802 - drop-in migration shim
-    """Migration shim for code written against the reference API: answers
-    "is an accelerator available?" — here that means a TPU
-    (reference: ``radiocore/__init__.py:6-26``)."""
-    return has_tpu()
+def device_peaks(device=None) -> dict:
+    """Published peaks of ``device`` (default: JAX's first device).
+
+    Raises ``ValueError`` for a kind missing from :data:`PEAKS`: a
+    roofline share against a guessed peak is not a measurement.
+    """
+    device = device if device is not None else jax.devices()[0]
+    kind = device.device_kind
+    if kind not in PEAKS:
+        raise ValueError(
+            f"no published peaks for device kind {kind!r}; add it to "
+            f"radiocore_tpu.runtime.platform.PEAKS with its source")
+    return PEAKS[kind]
 
 
 def platform_summary() -> dict:
     """Return a structured summary of the visible JAX platform/devices."""
     devs = jax.devices()
     return {
-        "platform": devs[0].platform if devs else "none",
-        "device_kind": devs[0].device_kind if devs else "none",
+        "platform": devs[0].platform,
+        "device_kind": devs[0].device_kind,
         "n_devices": len(devs),
         "n_local_devices": jax.local_device_count(),
         "process_index": jax.process_index(),
         "process_count": jax.process_count(),
-        "has_tpu": has_tpu(),
+        "has_cuda": HasCuda(),
     }
 
 
 def initialize_multihost(coordinator_address: Optional[str] = None,
                          num_processes: Optional[int] = None,
                          process_id: Optional[int] = None) -> None:
-    """Initialize the JAX multi-host (DCN) runtime.
+    """Initialize the JAX multi-process runtime.
 
     The reference has no multi-process runtime at all — its only
     inter-process transport is ZeroMQ PUB/SUB
-    (reference: ``examples/multi_fm_server.py:116-120``). On TPU pods the
-    idiomatic equivalent is ``jax.distributed.initialize`` so collectives
-    ride ICI/DCN inside jit.
+    (reference: ``examples/multi_fm_server.py:116-120``). Here
+    ``jax.distributed.initialize`` joins the processes so collectives run
+    inside jit. Nothing discovers a cluster on its own: pass the
+    coordinator address, process count and this process's id. On GPUs,
+    each process must see only its own card (``CUDA_VISIBLE_DEVICES``).
 
     No-op when JAX is already initialized or when running single-process
     with no coordinator configured.

@@ -1,7 +1,7 @@
 """Tracing/profiling helpers.
 
 Replaces the reference's ``timeit``-only story (SURVEY.md §5) with
-structured options: an XLA/TPU trace context (viewable in TensorBoard /
+structured options: an XLA device trace context (viewable in TensorBoard /
 Perfetto), named-stage wall timers, and a per-chunk realtime-factor
 tracker that apps feed their chunk cadence into.
 """

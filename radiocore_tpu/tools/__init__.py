@@ -3,7 +3,7 @@
 Layer L1 + the L3 channelizer (SURVEY.md §7.1). Host-side pieces
 (RingBuffer ingest, Carrousel recycling) keep the reference's semantics
 (reference: ``radiocore/tools/__init__.py:3-7``); the Tuner is re-designed
-TPU-first: one full-band FFT, then ALL channels extracted at once via a
+Batched: one full-band FFT, then ALL channels extracted at once via a
 precomputed spectrum gather + batched IFFT.
 """
 

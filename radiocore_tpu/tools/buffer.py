@@ -3,7 +3,7 @@
 Parity surface with reference ``radiocore/tools/buffer.py:10-93``
 (``data``, ``consume()``, ``size``, ``dtype``, ``is_locked``), with the
 CUDA managed-memory option replaced by an optional device-resident
-``jax.Array`` (``device=True``) for pre-staged TPU buffers.
+``jax.Array`` (``device=True``) for pre-staged device buffers.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ class Buffer:
                  lock: bool = False, device: bool = False,
                  cuda: bool = False):
         # ``cuda`` kept for reference signature parity; ``device`` is the
-        # TPU-resident analog of the reference's cuSignal shared memory
+        # Device-resident analog of the reference's cuSignal shared memory
         # (reference: buffer.py:42-44).
         self._size = int(size)
         self._dtype = np.dtype(dtype)

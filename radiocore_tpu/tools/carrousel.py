@@ -7,7 +7,7 @@ oldest item and bumps the overflow counter (reference: carrousel.py:84-90);
 ``Buffer`` items are unwrapped via ``consume()``
 (reference: carrousel.py:94-98). Single-producer only.
 
-TPU-native role: the slot items are typically device-resident arrays (or
+Device role: the slot items are typically device-resident arrays (or
 :class:`~radiocore_tpu.tools.buffer.Buffer` with ``device=True``), giving
 zero-realloc recycling of staged chunks.
 """

@@ -1,7 +1,7 @@
 """Equal-chunk array slicer.
 
 Parity with reference ``radiocore/tools/chopper.py:6-55``: errors unless
-evenly divisible, yields views not copies. TPU addition: ``chop_batch``
+evenly divisible, yields views not copies. Batched addition: ``chop_batch``
 reshapes to ``(n_chunks, chunk)`` in one op — the natural form to feed a
 vmap'd/jitted step (SURVEY.md §2.1 "reshape(n_chunks, chunk)").
 """

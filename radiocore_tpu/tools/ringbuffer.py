@@ -9,7 +9,7 @@ Behavioral parity with reference ``radiocore/tools/ringbuffer.py:10-160``:
 * two-segment wraparound copies, ``occupancy``/``vacancy``/``capacity``,
   ``reset``.
 
-TPU-native role: this is the host staging ring between the SDR reader
+Device role: this is the host staging ring between the SDR reader
 thread and the jitted device pipeline (SURVEY.md §2.1). A C++ backend
 (:mod:`radiocore_tpu.native`) provides the same semantics with lock-free
 copies for high-rate ingest; this pure-Python version is the portable

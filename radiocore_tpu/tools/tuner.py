@@ -7,7 +7,7 @@ the band to a multiple of the mean channel bandwidth,
 reference: tuner.py:163-174). Assumes the one-second-chunk convention:
 Hz == array index == FFT bin (reference: tuner.py:43-44).
 
-TPU-first inversion (SURVEY.md §7.1): where the reference rolls and
+Batched inversion (SURVEY.md §7.1): where the reference rolls and
 resamples the spectrum **sequentially per channel**
 (reference: ``examples/multi_fm_server.py:100-106``), ``run_all`` extracts
 every channel at once — a single precomputed gather of all channels'

@@ -4,7 +4,7 @@ Written clean-room from the recipes in SURVEY.md §2.1 (the reference is
 GPL — no code copied): these re-state the published math (quadrature
 demod, FFT resample, filtfilt bandpass, analytic-signal PLL, streaming
 de-emphasis) using public scipy APIs in float64, and serve as the
-numerical ground truth for the f32 TPU path (SURVEY.md §4:
+numerical ground truth for the f32 device path (SURVEY.md §4:
 "CPU-path-as-reference-oracle").
 """
 
@@ -126,6 +126,17 @@ def make_stereo_multiplex(n: int, fs: float, f_left: float, f_right: float,
     if compensate_window:
         sub_gain = 1.0 / (0.54 + 0.46 * np.cos(2 * np.pi * 38e3 / fs))
     return (left + right) / 2 + pilot + sub * (left - right) * sub_gain
+
+
+def extract_channel(spectrum: np.ndarray, shift: int,
+                    bandwidth: int) -> np.ndarray:
+    """One channel out of a full-band spectrum, in float64: roll by
+    ``shift`` bins, apply the fftshifted Hann window, and resample to
+    ``bandwidth`` samples in the frequency domain (the Tuner's
+    semantics, reference tuner.py:137-143)."""
+    win = np.fft.fftshift(sig.get_window("hann", len(spectrum)))
+    return sig.resample(np.roll(spectrum, shift) * win, int(bandwidth),
+                        domain="freq")
 
 
 def snr_db(reference: np.ndarray, estimate: np.ndarray) -> float:

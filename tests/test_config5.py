@@ -1,10 +1,10 @@
 """Config-5 rehearsal tests: ≥100 WBFM stations (BASELINE.md north star).
 
-Real multi-chip hardware is unavailable here, so the ≥100-station
-config-5 shape runs on the 8-virtual-device CPU mesh (single process)
-and across a REAL 2-process ``jax.distributed`` world — the same checks
-``benchmarks/config5_rehearsal.py`` records as the round artifact
-(CONFIG5_r02.json).
+The ≥100-station config-5 shape runs on the 8-virtual-device CPU mesh
+(single process) and across a REAL 2-process ``jax.distributed`` world —
+the same checks ``benchmarks/config5_rehearsal.py`` records. It stays on
+the CPU: on GPUs, each process must see only its own card
+(``CUDA_VISIBLE_DEVICES``).
 
 Reference analog: the reference serves 3 stations from a sequential
 per-channel loop (``examples/multi_fm_server.py:100-106``); nothing in

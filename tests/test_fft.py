@@ -1,8 +1,8 @@
-"""Four-step FFT decomposition vs numpy (the planned non-native path).
+"""Four-step FFT decomposition vs numpy (the 'fourstep' policy path).
 
-On CPU every size is native, so these force ``policy='fourstep'`` to
-exercise the decomposition that TPU uses for sizes whose native XLA FFT
-is unusable (e.g. 250 000 — see ops/fft.py module docstring).
+Every size is native by default, so these force ``policy='fourstep'``
+to exercise the recursive decomposition at the radio's non-pow2 sizes
+(e.g. 250 000 — see ops/fft.py module docstring).
 """
 
 import numpy as np
@@ -18,7 +18,7 @@ RNG = np.random.default_rng(5)
 def fourstep_policy():
     pfft.set_policy("fourstep")
     yield
-    pfft.set_policy("auto")
+    pfft.set_policy("native")
 
 
 @pytest.mark.parametrize("n", [250_000, 48_000, 15_625, 100_000, 62_500])
@@ -94,47 +94,3 @@ def test_fft_decomposed_matches_numpy():
         got_i = np.asarray(ifft_decomposed(jnp.asarray(x)))
         np.testing.assert_allclose(got_i, want_i,
                                    atol=2e-3 * np.max(np.abs(want_i)))
-
-
-def test_extractor_fourstep_ifft_matches_native(monkeypatch):
-    """RADIOCORE_TPU_EXTRACT_IFFT=fourstep must be numerically
-    interchangeable with the native lowering."""
-    from radiocore_tpu.ops import channelize
-
-    n, m = 65536, 8192
-    # uniform critically-sampled grid of 8 channels
-    shifts = tuple(-(((k * m + n // 2) % n) - n // 2) for k in range(n // m))
-    rng = np.random.default_rng(8)
-    spec = (rng.standard_normal(n)
-            + 1j * rng.standard_normal(n)).astype(np.complex64)
-
-    want = np.asarray(channelize.make_extractor(n, shifts, m)(
-        jnp.asarray(spec)))
-    channelize.make_extractor.cache_clear()
-    monkeypatch.setenv("RADIOCORE_TPU_EXTRACT_IFFT", "fourstep")
-    got = np.asarray(channelize.make_extractor(n, shifts, m)(
-        jnp.asarray(spec)))
-    channelize.make_extractor.cache_clear()
-    scale = np.max(np.abs(want))
-    np.testing.assert_allclose(got, want, atol=1e-5 * scale)
-
-
-def test_use_mixed_gating(monkeypatch):
-    """Planner mixed-radix routing: engaged only for non-pow2 a*2^k
-    sizes >= the threshold on TPU (r5 default 2^23)."""
-    from radiocore_tpu.ops import fft as _fft
-    from radiocore_tpu.runtime import platform
-
-    monkeypatch.setattr(platform, "has_tpu", lambda: True)
-    monkeypatch.delenv("RADIOCORE_TPU_FFT_MIXED_MIN", raising=False)
-    assert _fft._use_mixed(3 << 23)          # 24M = 96 * 2^18
-    assert not _fft._use_mixed(1 << 24)      # pow2 -> _use_pallas path
-    assert not _fft._use_mixed(3 << 20)      # below threshold
-    assert not _fft._use_mixed((1 << 23) + 8)  # no a*pow2 split
-
-    monkeypatch.setattr(platform, "has_tpu", lambda: False)
-    assert not _fft._use_mixed(3 << 23)      # CPU: off
-
-    monkeypatch.setattr(platform, "has_tpu", lambda: True)
-    monkeypatch.setenv("RADIOCORE_TPU_FFT_MIXED_MIN", "0")
-    assert not _fft._use_mixed(3 << 23)      # 0 disables

@@ -94,22 +94,6 @@ def test_threaded_ingest_producer_reuses_buffer():
         np.testing.assert_array_equal(got, want)
 
 
-def test_verify_staged_restages_on_failure():
-    """verify_staged falls back to the blocking resilient path when the
-    async-staged chunk errors at consumption time (deferred relay H2D
-    failure)."""
-    from radiocore_tpu.runtime.ingest import verify_staged
-
-    host = _chunks(1, 1024)[0]
-
-    class Exploding:
-        def block_until_ready(self):
-            raise RuntimeError("UNIMPLEMENTED: deferred H2D failure")
-
-    out = verify_staged(Exploding(), host)
-    np.testing.assert_array_equal(np.asarray(out), host)
-
-
 def test_mutated_host_buffer_isolation():
     """The producer may reuse its staging buffer after the consumer has
     consumed the chunk (the receive_fm pattern: depth+1 buffers)."""

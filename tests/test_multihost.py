@@ -5,9 +5,11 @@ joined via ``jax.distributed.initialize`` into one 8-device world. The
 fused channelize+WBFM pipeline and the ppermute halo-exchange FIR run
 over a global mesh whose ``time`` axis straddles the process boundary,
 so every collective (band-FFT all-gather, halo ppermute, checksum psum)
-actually crosses the distributed runtime — the DCN analog of a TPU
-multi-host pod (SURVEY.md §2.5; the reference's only inter-process
-transport is ZeroMQ, ``examples/multi_fm_server.py:116-120``).
+actually crosses the distributed runtime — the analog of a multi-host
+deployment (SURVEY.md §2.5; the reference's only inter-process
+transport is ZeroMQ, ``examples/multi_fm_server.py:116-120``). It stays
+on the CPU: on GPUs, each process must see only its own card
+(``CUDA_VISIBLE_DEVICES``).
 
 Verifies both processes agree AND match the single-process oracle.
 """

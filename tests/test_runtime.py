@@ -8,7 +8,8 @@ from radiocore_tpu.runtime.metrics import Metrics
 from radiocore_tpu.runtime.profiling import StageTimer
 from radiocore_tpu.runtime.config import (PipelineConfig, StationConfig,
                                           MeshConfig)
-from radiocore_tpu.runtime.platform import has_tpu, platform_summary
+from radiocore_tpu.runtime.platform import (HasCuda, device_platform,
+                                            platform_summary)
 from radiocore_tpu.runtime.transfer import to_device_c64, to_host
 
 
@@ -48,10 +49,12 @@ def test_pipeline_config_chunks():
 
 
 def test_platform_probe_cpu():
-    assert has_tpu() is False  # conftest forces the CPU platform
+    assert device_platform() == "cpu"  # conftest forces the CPU platform
+    assert HasCuda() is False
     summary = platform_summary()
     assert summary["platform"] == "cpu"
     assert summary["n_devices"] == 8
+    assert summary["has_cuda"] is False
 
 
 def test_transfer_roundtrip():

@@ -1,8 +1,7 @@
 """Device-resident synthesis + measurement (ops/synth.py).
 
-These are the building blocks of the transfer-free TPU acceptance drive
-(benchmarks/tpu_acceptance.py); here they are validated on CPU against
-the host float64 oracles.
+These run whole checks on the device with only scalars crossing to the
+host; here they are validated on CPU against the host float64 oracles.
 """
 
 import numpy as np
